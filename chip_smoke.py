@@ -52,13 +52,16 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
-# Relative tolerances (max |kernel - plain| / max |plain|):
+# Relative tolerances (max |kernel - plain| / max |plain|; for B2, over
+# the largest change the rounds made to beta):
 # f32: the same f32 products summed in another order.
 # bf16 operands: the hidden tile is rounded to bf16 on both sides, and an
 # element can round one bf16 ulp (2^-8) apart where the two f32 feature
-# sums straddle a rounding boundary.
+# sums straddle a rounding boundary; only rbf, whose distance expansion
+# cancels, shows it on the card (largest readings 5.0e-4 for B1, 1.4e-3
+# for B4). Each limit is about three times its kernel's reading.
 TOL_F32 = 1e-5
-TOL_BF16 = 8e-3
+TOL_BF16 = {"B1": 1.5e-3, "B4": 4e-3}
 # beta after the main path's rounds: f32 summation-order drift compounds.
 TOL_ROUNDS = 1e-4
 # eq. (12): |sum_i grad u_i| against the size of its terms, with Omega
@@ -121,6 +124,14 @@ def rel_err(got, want):
     return err, err / scale
 
 
+def increment_err(got, want, start):
+    """(max abs error, that error over max |want - start|) in f64: a
+    round's error against the size of what the rounds changed."""
+    err = float((got.double() - want.double()).abs().max())
+    scale = max(float((want.double() - start.double()).abs().max()), 1e-30)
+    return err, err / scale
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_mem = nbytes / HBM_BYTES_PER_S
     t_ops = flops / F32_FLOPS_PER_S
@@ -177,14 +188,43 @@ def gossip_inputs(gen, graphs, L, M, dev):
     idx, w, deg = elm_gossip_ref.neighbor_lists(adj, device=dev)
     betas = torch.randn((V, L, M), generator=gen, device=dev)
     A = torch.randn((V, L, L), generator=gen, device=dev)
-    omegas = A @ A.mT / L
-    scale = 0.9 / (V * float(deg.max()))
+    # Omega = (I / VC + P)^-1 at V C = 1, as on the main path: its
+    # spectrum lies in (0, 1], and scale = gamma / (V C) with the default
+    # gamma moves beta by a share of its own size in each round.
+    eye = torch.eye(L, device=dev)
+    omegas = torch.cholesky_solve(
+        eye.expand(V, L, L), torch.linalg.cholesky(eye + A @ A.mT / L))
+    scale = 0.9 / float(deg.max())
     return betas, omegas, idx, w, deg, scale
 
 
 # ---------------------------------------------------------------------------
 # Phase 1: every kernel against its plain version
 # ---------------------------------------------------------------------------
+
+
+def gossip_stepwise_err(betas, omegas, idx, w, deg, scale, rounds, compress):
+    """B2 against its plain version round by round: round k starts both
+    from the plain state after k rounds and uses snapshot k % S.
+
+    The bf16 payload is a step function of beta, so over chained rounds a
+    one-ulp f32 difference can flip a payload element by a bf16 ulp; from
+    a shared state the two must agree to f32 summation order. Returns the
+    largest (max abs error, error over the round's largest increment)."""
+    from repro_torch.kernels import elm_gossip, elm_gossip_ref
+
+    worst = (0.0, 0.0)
+    x = betas
+    for k in range(rounds):
+        snap = slice(k % idx.shape[0], k % idx.shape[0] + 1)
+        args = (omegas, idx[snap], w[snap], deg[snap], scale)
+        got = elm_gossip.elm_gossip_cuda(x, *args, num_rounds=1,
+                                         compress=compress)
+        want = elm_gossip_ref.elm_gossip_scan(x, *args, num_rounds=1,
+                                              compress=compress)
+        worst = max(worst, increment_err(got, want, x), key=lambda t: t[1])
+        x = want
+    return worst
 
 
 def check_kernels(cfg: Config, dev, fails: Failures) -> dict:
@@ -222,7 +262,7 @@ def check_kernels(cfg: Config, dev, fails: Failures) -> dict:
                 P, Q = elm_stats.elm_stats_cuda(X, W, b, T, activation=act)
                 Pr, Qr = elm_stats_ref.elm_stats_reference(
                     X, W, b, T, activation=act)
-                tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+                tol = TOL_F32 if dtype == torch.float32 else TOL_BF16["B1"]
                 (ep, rp), (eq, rq) = rel_err(P, Pr), rel_err(Q, Qr)
                 sym = bool(torch.equal(P, P.mT))
                 fails.check(
@@ -243,7 +283,7 @@ def check_kernels(cfg: Config, dev, fails: Failures) -> dict:
                 Y = elm_predict.elm_predict_cuda(X, W, b, beta, activation=act)
                 Yr = elm_predict_ref.predict_reference(
                     X, W, b, beta, activation=act)
-                tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+                tol = TOL_F32 if dtype == torch.float32 else TOL_BF16["B4"]
                 e, r = rel_err(Y, Yr)
                 fails.check(
                     r <= tol,
@@ -264,21 +304,29 @@ def check_kernels(cfg: Config, dev, fails: Failures) -> dict:
                 else (cfg.ragged_features, cfg.ragged_targets))
         for S in (1, 2):
             for compress in (None, "bf16"):
-                betas, omegas, idx, w, deg, scale = gossip_inputs(
-                    gen, graphs[:S], l, m, dev)
-                got = elm_gossip.elm_gossip_cuda(
-                    betas, omegas, idx, w, deg, scale, num_rounds=3,
-                    compress=compress)
-                want = elm_gossip_ref.elm_gossip_scan(
-                    betas, omegas, idx, w, deg, scale, num_rounds=3,
-                    compress=compress)
-                e, r = rel_err(got, want)
+                inputs = gossip_inputs(gen, graphs[:S], l, m, dev)
+                e, r = gossip_stepwise_err(*inputs, 3, compress)
                 fails.check(
                     r <= TOL_F32,
-                    f"B2 {shape} S={S} compress={compress} (3 rounds): "
-                    f"max_abs_err={e:.3e} rel={r:.2e} (tol {TOL_F32:g})",
+                    f"B2 {shape} S={S} compress={compress} (3 rounds, each "
+                    f"from the plain state): max_abs_err={e:.3e} rel to the "
+                    f"increment={r:.2e} (tol {TOL_F32:g})",
                 )
-                if shape == "flagship" and S == 1 and compress is None:
+                if compress is not None:
+                    continue
+                betas, omegas, idx, w, deg, scale = inputs
+                got = elm_gossip.elm_gossip_cuda(
+                    betas, omegas, idx, w, deg, scale, num_rounds=3)
+                want = elm_gossip_ref.elm_gossip_scan(
+                    betas, omegas, idx, w, deg, scale, num_rounds=3)
+                e, r = increment_err(got, want, betas)
+                fails.check(
+                    r <= TOL_F32,
+                    f"B2 {shape} S={S} compress=None (3 chained rounds): "
+                    f"max_abs_err={e:.3e} rel to the increment={r:.2e} "
+                    f"(tol {TOL_F32:g})",
+                )
+                if shape == "flagship" and S == 1:
                     main_err["elm_gossip"] = e
     return main_err
 

@@ -56,6 +56,13 @@ def _mix_dtype(payload_dtype) -> torch.dtype:
     return torch.promote_types(payload_dtype, torch.float32)
 
 
+def _stack_adjacencies(graphs: Graph | Sequence[Graph]) -> np.ndarray:
+    """(S, V, V) host adjacency of one graph or a snapshot sequence."""
+    if isinstance(graphs, Graph):
+        graphs = [graphs]
+    return np.stack([np.asarray(g.adjacency) for g in graphs])
+
+
 class DenseMixer:
     """Dense-adjacency mixing over a stacked leading node axis.
 
@@ -82,9 +89,7 @@ class DenseMixer:
         cls, graphs: Graph | Sequence[Graph], *, dtype=torch.float32,
         compress=None, device=None,
     ):
-        if isinstance(graphs, Graph):
-            graphs = [graphs]
-        adjs = np.stack([np.asarray(g.adjacency) for g in graphs])
+        adjs = _stack_adjacencies(graphs)
         return cls(
             torch.as_tensor(adjs, dtype=dtype, device=resolve_device(device)),
             compress=compress,
@@ -145,14 +150,31 @@ class NeighborMixer(DenseMixer):
     path takes the exact DenseMixer program.
     """
 
-    def __init__(self, adjacencies: torch.Tensor, *, compress=None):
+    def __init__(self, adjacencies: torch.Tensor, *, compress=None,
+                 host_adjacencies: np.ndarray | None = None):
+        """host_adjacencies: the same snapshots as a numpy array, when the
+        caller has them; the lists are then built from it and uploaded,
+        and the device adjacency is never read back."""
         super().__init__(adjacencies, compress=compress)
         from repro_torch.kernels import elm_gossip_ref
 
-        idx, w, _ = elm_gossip_ref.neighbor_lists(self.adjacencies)
+        adj = self.adjacencies if host_adjacencies is None else host_adjacencies
+        idx, w, _ = elm_gossip_ref.neighbor_lists(
+            adj, device=self.adjacencies.device)
         self.neighbor_idx = idx
-        self.neighbor_w = w
+        self.neighbor_w = w.to(self.adjacencies.dtype)
         self.d_max = int(idx.shape[-1])
+
+    @classmethod
+    def from_graphs(
+        cls, graphs: Graph | Sequence[Graph], *, dtype=torch.float32,
+        compress=None, device=None,
+    ):
+        adjs = _stack_adjacencies(graphs)
+        return cls(
+            torch.as_tensor(adjs, dtype=dtype, device=resolve_device(device)),
+            compress=compress, host_adjacencies=adjs,
+        )
 
     def _lists_row(self, k):
         S = self.adjacencies.shape[0]

@@ -77,12 +77,14 @@ def neighbor_lists(adjacencies, *, device=None):
             f"adjacencies must be (V,V) or (S,V,V), got {adj.shape}"
         )
     S, V, _ = adj.shape
-    counts = (adj != 0).sum(axis=-1)
+    live = adj != 0
+    counts = np.count_nonzero(live, axis=-1)
     d_max = max(int(counts.max(initial=0)), 1)
     idx = np.zeros((S, V, d_max), np.int32)
     w = np.zeros((S, V, d_max), adj.dtype)
     for s in range(S):
-        rows, cols = np.nonzero(adj[s])  # row-major: by row, then column
+        # row-major: by row, then column
+        rows, cols = np.divmod(np.flatnonzero(live[s]), V)
         slot = np.arange(rows.size) - np.searchsorted(rows, rows)
         idx[s, rows, slot] = cols
         w[s, rows, slot] = adj[s, rows, cols]

@@ -149,8 +149,11 @@ def test_gpu_stats_kernel_matches_plain(cuda, act, dtype):
     T = torch.randn((V, N, M), generator=g, device=cuda)
     P, Q = elm_stats_cuda(X, W, b, T, activation=act)
     Pr, Qr = elm_stats_ref.elm_stats_reference(X, W, b, T, activation=act)
-    tol = 1e-5 if dtype == torch.float32 else 8e-3
-    assert _rel_err(P, Pr) < tol and _rel_err(Q, Qr) < tol
+    # chip_smoke.py's limits: f32 summation order; bf16 about three times
+    # the largest reading on the card (rbf)
+    tol = 1e-5 if dtype == torch.float32 else 1.5e-3
+    errs = (_rel_err(P, Pr), _rel_err(Q, Qr))
+    assert max(errs) < tol, errs
     assert torch.equal(P, P.mT)
 
 
@@ -168,7 +171,8 @@ def test_gpu_predict_kernel_matches_plain(cuda, act, dtype):
     beta = torch.randn((L, M), generator=g, device=cuda)
     Y = elm_predict_cuda(X, W, b, beta, activation=act)
     Yr = elm_predict_ref.predict_reference(X, W, b, beta, activation=act)
-    assert _rel_err(Y, Yr) < (1e-5 if dtype == torch.float32 else 8e-3)
+    err = _rel_err(Y, Yr)
+    assert err < (1e-5 if dtype == torch.float32 else 4e-3), err
 
 
 @pytest.mark.gpu
@@ -184,10 +188,29 @@ def test_gpu_gossip_kernel_matches_plain(cuda, compress, snapshots):
     idx, w, deg = elm_gossip_ref.neighbor_lists(adj, device=cuda)
     betas = torch.randn((V, L, M), generator=g, device=cuda)
     A = torch.randn((V, L, L), generator=g, device=cuda)
-    omegas = A @ A.mT / L
-    scale = 0.9 / (V * float(deg.max()))
-    got = elm_gossip_cuda(betas, omegas, idx, w, deg, scale, num_rounds=5,
-                          compress=compress)
-    want = elm_gossip_ref.elm_gossip_scan(betas, omegas, idx, w, deg, scale,
-                                          num_rounds=5, compress=compress)
-    assert _rel_err(got, want) < 1e-5
+    # Omega = (I / VC + P)^-1 and scale = gamma / (V C) at V C = 1, as on
+    # the main path, so each round moves beta by a share of its size.
+    eye = torch.eye(L, device=cuda)
+    omegas = torch.cholesky_solve(
+        eye.expand(V, L, L), torch.linalg.cholesky(eye + A @ A.mT / L))
+    scale = 0.9 / float(deg.max())
+    # Round by round, each from the plain state: the bf16 payload is a
+    # step function of beta, so over chained rounds a one-ulp f32
+    # difference can flip a payload element by a bf16 ulp. The error is
+    # taken against what the round changed, not against |beta|.
+    x = betas
+    for k in range(5):
+        snap = slice(k % snapshots, k % snapshots + 1)
+        args = (omegas, idx[snap], w[snap], deg[snap], scale)
+        got = elm_gossip_cuda(x, *args, num_rounds=1, compress=compress)
+        want = elm_gossip_ref.elm_gossip_scan(x, *args, num_rounds=1,
+                                              compress=compress)
+        err = _rel_err(got - x, want - x)
+        assert err < 1e-5, (k, err)
+        x = want
+    if compress is None:
+        got = elm_gossip_cuda(betas, omegas, idx, w, deg, scale, num_rounds=5)
+        want = elm_gossip_ref.elm_gossip_scan(betas, omegas, idx, w, deg,
+                                              scale, num_rounds=5)
+        err = _rel_err(got - betas, want - betas)
+        assert err < 1e-5, err
